@@ -15,7 +15,20 @@ Builds the port's kernels from the sources in this checkout, then:
 3. runs the reduced preset for 60 iterations, through FIFO wrap-around,
    eviction (every 50 learner steps) and the target sync at step 100;
 4. runs one reduced iteration on the kernels and one on the plain versions
-   from the same seed, and compares what comes out.
+   from the same seed, and compares what comes out;
+5. holds the flash-attention kernel against its plain version on the card
+   (the JAX suite's cases in bf16 and f32, D=192/Dv=128, a longer cache with
+   an offset, one query row, and one llama3.2-1b layer's prefill), and times
+   it beside the plain version and PyTorch's fused attention as a yardstick;
+6. serves llama3.2-1b at full width (bf16, random weights from a seed):
+   the score step on 4 x 2048 tokens, ``serve`` (batch 4, prompt 2048, 32
+   new tokens) and the ``ContinuousBatcher`` (8 slots, 16 requests of 256-1024
+   prompt tokens, chunk 256, 16 new tokens each), checking 16 kernel launches
+   per prefill and per prefill chunk, finite logits and every request's
+   token budget;
+7. compares the full-width prefill logits through the kernel and through the
+   plain attention, and the reduced model's greedy tokens (f32) on both
+   paths, through ``serve`` and the ``ContinuousBatcher``.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -40,6 +53,9 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# the kernels of the lockstep trainer (phases 1-4)
+TRAINER_KERNELS = ("sumtree_update", "sumtree_sample", "replay_ingest", "nstep_return")
 
 
 def check(cond: bool, what: str) -> None:
@@ -61,8 +77,8 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -341,7 +357,7 @@ def run_full(kernels) -> tuple[dict, float]:
     counts = kernels.launch_counts()
     check(learned >= 2 and state.learner_step == 2 * learned,
           f"full: learner ran {learned} iterations, step {state.learner_step}")
-    check(all(v > 0 for v in counts.values()), f"full: a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in TRAINER_KERNELS), f"full: a kernel never launched: {counts}")
     return counts, steady.rate()
 
 
@@ -374,7 +390,8 @@ def run_reduced(kernels) -> float:
     check(evicted and synced, f"reduced: evicted={evicted} synced={synced}")
     check(state.replay.total_added > cfg.replay.capacity, "reduced: FIFO never wrapped")
     counts = kernels.launch_counts()
-    check(all(v > 0 for v in counts.values()), f"reduced: a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in TRAINER_KERNELS),
+          f"reduced: a kernel never launched: {counts}")
     return steady.rate()
 
 
@@ -403,6 +420,224 @@ def run_agreement() -> None:
     check(mk["updated"] == mp["updated"] == 1.0, "agreement: learner did not run")
     check(math.isclose(float(mk["loss"]), float(mp["loss"]), rel_tol=1e-4),
           f"agreement: loss {float(mk['loss'])} vs {float(mp['loss'])}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, q_offset
+    (2, 256, 256, 4, 2, 64, 64, True, None, 0),      # tests/test_kernels.py FLASH_CASES
+    (1, 128, 128, 4, 4, 32, 32, True, None, 0),
+    (1, 200, 200, 4, 2, 32, 32, True, 64, 0),        # window, ragged tiles
+    (2, 1, 384, 8, 2, 64, 64, True, None, 255),      # decode shape
+    (1, 128, 128, 2, 1, 128, 128, False, None, 0),   # encoder
+    (1, 96, 96, 2, 2, 80, 80, True, None, 0),        # head_dim 80
+    (1, 100, 300, 4, 2, 192, 128, True, None, 150),  # D=192, Dv=128, Sk > Sq, offset
+    (2, 256, 1040, 32, 8, 64, 64, True, None, 512),  # a prefill chunk against a cache
+    (3, 1, 700, 32, 8, 64, 64, True, None, 699),     # Sq = 1
+]
+MAIN_FLASH = (4, 2048, 2048, 32, 8, 64, 64, True, None, 0)   # one llama3.2-1b prefill layer
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py:46
+
+
+def visible_pairs(B, Sq, Sk, Hq, causal, window, off) -> int:
+    """(query, key) pairs the mask lets through, over every batch row and head."""
+    q = off + torch.arange(Sq, dtype=torch.int64)
+    hi = torch.minimum(q, torch.tensor(Sk - 1)) if causal else torch.full_like(q, Sk - 1)
+    lo = (q - window + 1).clamp(min=0) if window is not None else torch.zeros_like(q)
+    return B * Hq * int((hi - lo + 1).clamp(min=0).sum())
+
+
+def flash_inputs(case, dtype, gen):
+    B, Sq, Sk, Hq, Hkv, D, Dv = case[:7]
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, Dv)
+
+
+def check_flash_attention(gen) -> dict:
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    def plain(q, k, v, causal, window, off):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       causal=causal, window=window,
+                                       q_offset=off).transpose(1, 2)
+
+    worst = 0.0
+    for case in FLASH_CASES + [MAIN_FLASH]:
+        causal, window, off = case[7:]
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = flash_inputs(case, dtype, gen)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+            want = plain(q, k, v, causal, window, off)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            print(f"[phase 5] flash {case} {dtype}: max abs err {err:.3g}", file=sys.stderr)
+            check(got.shape == want.shape and got.dtype == dtype, f"flash {case}: {got.shape}")
+            check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                  f"flash {case} {dtype}: error {err} beyond {tol}")
+            worst = max(worst, err)
+            del q, k, v, got, want
+
+    B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, off = MAIN_FLASH
+    q, k, v = flash_inputs(MAIN_FLASH, torch.bfloat16, gen)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 20)
+    plain_ms = time_ms(lambda: plain(q, k, v, causal, window, off), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    ops_count = 2 * visible_pairs(B, Sq, Sk, Hq, causal, window, off) * (D + Dv)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() // D * Dv * 2
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7: serving llama3.2-1b
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "llama3.2-1b"
+
+
+def count_chunks(fn):
+    """Run ``fn`` counting ``transformer.prefill_chunk`` calls; -> (result, calls)."""
+    from repro_torch.models import transformer
+    calls, inner = [0], transformer.prefill_chunk
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    transformer.prefill_chunk = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        transformer.prefill_chunk = inner
+
+
+def run_serving(kernels) -> tuple[dict, dict]:
+    """Phase 6: the score step, ``serve`` and the ContinuousBatcher at full
+    width. Returns (flash launches per path, metrics)."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import registry, transformer
+
+    cfg = registry.get_config(SERVE_ARCH)
+    vocab, metrics, launches = cfg.vocab_size, {}, {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the actor's score step on 4 x 2048 tokens
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = transformer.init(cfg, gen, "cuda")
+    check(cfg.act_dtype == torch.bfloat16 and params["embed"]["w"].dtype == torch.bfloat16,
+          "full width is not bf16")
+    tokens = torch.randint(0, vocab, (4, 2048), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    score = steps.make_score_step(cfg)
+    score(params, {"tokens": tokens, "labels": labels})           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prio = score(params, {"tokens": tokens, "labels": labels})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["score"] = kernels.launch_counts()["flash_attention"]
+    check(launches["score"] == cfg.n_layers, f"score: {launches['score']} flash launches")
+    check(prio.shape == (4,) and bool(torch.isfinite(prio).all()), f"score: priorities {prio}")
+    metrics["score_sequences_per_s"] = 4 / dt
+    del params
+
+    # (b) serve: batch 4, prompt 2048, 32 new tokens
+    serve.serve(SERVE_ARCH, 4, 64, 2, reduced=False, seed=1)      # warm-up
+    kernels.reset_launch_counts()
+    res = serve.serve(SERVE_ARCH, 4, 2048, 32, reduced=False, seed=0)
+    launches["serve"] = kernels.launch_counts()["flash_attention"]
+    check(launches["serve"] == cfg.n_layers, f"serve: {launches['serve']} flash launches")
+    check(res.finite, "serve: prefill logits not finite")
+    check(res.tokens.shape == (4, 32) and bool(((res.tokens >= 0) & (res.tokens < vocab)).all()),
+          f"serve: tokens {res.tokens.shape}")
+    metrics["prefill_tokens_per_s"] = 4 * 2048 / res.prefill_s
+    metrics["decode_tokens_per_s"] = 4 * 31 / res.decode_s
+
+    # (c) continuous batching: 8 slots, 16 requests of 256-1024 tokens
+    kernels.reset_launch_counts()
+    run, chunk_calls = count_chunks(lambda: serve.serve_continuous(
+        SERVE_ARCH, requests=16, slots=8, new_tokens=16, reduced=False, seed=0,
+        prompt_len=(256, 1025), max_len=1040, chunk=256))
+    launches["continuous"] = kernels.launch_counts()["flash_attention"]
+    check(chunk_calls > 0 and launches["continuous"] == cfg.n_layers * chunk_calls,
+          f"continuous: {launches['continuous']} flash launches for {chunk_calls} chunks")
+    check(sorted(run.emitted) == list(range(16))
+          and all(len(t) == 16 for t in run.emitted.values()),
+          f"continuous: budgets {[len(t) for t in run.emitted.values()]}")
+    check(all(0 <= t < vocab for ts in run.emitted.values() for t in ts),
+          "continuous: token out of range")
+    check(run.finite, "continuous: decode logits not finite")
+    metrics["continuous_tokens_per_s"] = 16 * 16 / run.seconds
+    metrics["continuous_steps"] = run.steps
+    metrics["continuous_prefill_chunks"] = chunk_calls
+    metrics["serving_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return launches, metrics
+
+
+# Full-width bf16 prefill logits, kernel path against plain path. Both
+# compute attention in f32 and round its output to bf16; the kernel also
+# rounds P to bf16 before P V and sums in another order. So each layer's
+# attention output differs by about one bf16 ulp (2^-8 relative), and 16
+# layers of bf16 residual adds carry that into logits of standard
+# deviation about 0.9: differences of about 0.1 at the extreme of 1.05e9
+# logits. 0.25 bounds that with room for another seed; a wrong mask or a
+# dropped tile moves logits by O(1).
+BF16_LOGIT_TOL = 0.25
+
+
+def run_serving_agreement(kernels) -> dict:
+    """Phase 7: kernel against plain attention through the model."""
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer
+
+    cfg = registry.get_config(SERVE_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    params = transformer.init(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen, device="cuda")
+    out = {}
+    for impl in ("flash", "einsum"):
+        kernels.reset_launch_counts()
+        cache = transformer.init_cache(cfg, 4, 2048, "cuda")
+        logits, _ = transformer.prefill(params, prompt, cfg=cfg, cache=cache, impl=impl)
+        out[impl] = logits
+        del cache, logits
+        n = kernels.launch_counts()["flash_attention"]
+        check(n == (cfg.n_layers if impl == "flash" else 0), f"agreement {impl}: {n} launches")
+    diff = (out["flash"] - out["einsum"]).abs()
+    err, mean_err = float(diff.max()), float(diff.mean())
+    scale = float(out["einsum"].std())
+    same_top = float((out["flash"].argmax(-1) == out["einsum"].argmax(-1)).float().mean())
+    del diff, out, params
+    check(err <= BF16_LOGIT_TOL, f"full-width prefill logits differ by {err} > {BF16_LOGIT_TOL}")
+    print(f"[phase 7] full width bf16 prefill logits: max abs diff {err:.4g}, mean "
+          f"{mean_err:.4g}, logit std {scale:.4g}, same argmax {same_top:.4f}", file=sys.stderr)
+
+    tokens = {}
+    for impl in ("flash", "einsum"):
+        # the reduced model (f32) through the entry points, on the card
+        kernels.reset_launch_counts()
+        res = serve.serve(SERVE_ARCH, 4, 150, 16, reduced=True, seed=4, impl=impl)
+        run = serve.serve_continuous(SERVE_ARCH, requests=9, slots=4, new_tokens=12,
+                                     reduced=True, seed=3, impl=impl, prompt_len=(40, 140),
+                                     max_len=160, chunk=32)
+        tokens[impl] = (res.tokens.cpu(), run.emitted)
+        n = kernels.launch_counts()["flash_attention"]
+        check((n > 0) if impl == "flash" else (n == 0), f"reduced {impl}: {n} launches")
+    check(torch.equal(tokens["flash"][0], tokens["einsum"][0]), "reduced serve tokens differ")
+    check(tokens["flash"][1] == tokens["einsum"][1], "reduced continuous tokens differ")
+    return {"full_prefill_logit_max_abs_diff": err, "full_prefill_logit_mean_abs_diff": mean_err,
+            "full_prefill_same_argmax": same_top}
 
 
 def main() -> int:
@@ -435,6 +670,18 @@ def main() -> int:
     run_agreement()
     print(f"[phase 4] kernels and plain versions agree end to end "
           f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    results["flash_attention"] = check_flash_attention(gen)
+    print(f"[phase 5] flash attention agrees with its plain version "
+          f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr)
+    with contextlib.redirect_stdout(sys.stderr):
+        flash_launches, serving = run_serving(kernels)
+        print(f"[phase 6] {SERVE_ARCH} full width: {serving}, flash launches "
+              f"{flash_launches} ({time.perf_counter() - t0:.1f} s)")
+        agreement = run_serving_agreement(kernels)
+        print(f"[phase 7] kernel and plain attention agree through the model "
+              f"({time.perf_counter() - t0:.1f} s)")
+    launches["flash_attention"] = sum(flash_launches.values())
 
     meta = {
         "sumtree_update": ("cuda", "src/repro_torch/csrc/sumtree_update.cu",
@@ -445,13 +692,17 @@ def main() -> int:
                           "src/repro/kernels/replay_ingest/kernel.py:138"),
         "nstep_return": ("triton", "src/repro_torch/kernels/nstep_return/kernel.py",
                          "src/repro/kernels/nstep_return/kernel.py:37"),
+        "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:86"),
     }
     rows = [{"name": name, "route": route, "source": source, "replaces": replaces,
-             "launches": launches[name], **results[name], "library_ms": None}
+             "launches": launches[name], "library_ms": None, **results[name]}
             for name, (route, source, replaces) in meta.items()]
     print(json.dumps({"full_steady_iterations_per_s": full_its,
                       "reduced_steady_iterations_per_s": red_its,
-                      "peak_memory_bytes": torch.cuda.max_memory_allocated()}))
+                      "peak_memory_bytes": trainer_peak}))
+    print(json.dumps({"serving": {"arch": SERVE_ARCH, **serving, **agreement,
+                                  "flash_launches": flash_launches}}))
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

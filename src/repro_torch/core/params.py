@@ -2,8 +2,11 @@
 
 The JAX package's parameter and optimizer-state pytrees are nested dicts,
 tuples and NamedTuples of arrays, as ``jax.tree.map(np.asarray, ...)``
-gives them; the port keeps the same layout, so the conversion is leafwise.
-Only numpy is used to read the arrays: nothing here imports JAX.
+gives them; the port keeps the same layout, so the conversion is leafwise
+(the transformer's stacked layer dict included). Only numpy is used to read
+the arrays: nothing here imports JAX. A bfloat16 leaf (numpy dtype
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) is carried bit
+for bit through its uint16 view.
 """
 
 from __future__ import annotations
@@ -34,9 +37,15 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
             return port(*vals) if port is not None else tuple(vals)
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
-        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+        return _tensor(np.array(x, copy=True)).to(dev)
 
     return conv(tree)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def init_state_from_jax(jax_state: Any, device="cuda", seed: int = 0):

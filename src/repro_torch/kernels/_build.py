@@ -26,13 +26,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # name -> (C symbol, argtypes); every symbol returns cudaGetLastError()
 SIGNATURES = {
     "sumtree_update": ("sumtree_update_launch", [_P, _I, _P, _P, _I, _P, _P]),
     "sumtree_sample": ("sumtree_sample_launch", [_P, _I, _P, _I, _P, _P, _P]),
     "replay_ingest": ("replay_ingest_launch",
                       [_P, _I, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I] * 8 + [_L] * 12 + [_F, _I, _I, _I, _P]),
 }
 
 _fns: dict[str, ctypes._CFuncPtr] = {}

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core import sumtree
-from repro_torch.kernels import nstep_return, replay_ingest, sumtree_sample, sumtree_update
+from repro_torch.kernels import (flash_attention, nstep_return, replay_ingest, sumtree_sample,
+                                 sumtree_update)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +92,36 @@ def test_nstep_return_kernel_within_1e6(gen, lanes, T, n):
         assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    # B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, q_offset
+    (2, 256, 256, 4, 2, 64, 64, True, None, 0),
+    (1, 200, 200, 4, 2, 80, 80, True, 64, 0),          # window, ragged tiles
+    (1, 100, 300, 4, 2, 192, 128, True, None, 150),    # Sk > Sq, D != Dv
+    (2, 1, 384, 8, 2, 128, 128, True, None, 255),      # one query row
+    (1, 96, 64, 2, 1, 32, 32, True, 16, 50),           # rows 0-28 see keys, 29+ none
+    (1, 128, 128, 2, 1, 64, 32, False, None, 0),       # encoder
+], ids=str)
+def test_flash_attention_kernel_matches_the_plain_version(gen, case, dtype, tol):
+    B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, off = case
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, Hkv, Dv), generator=gen, device="cuda").to(dtype)
+    before = flash_attention.ops.launches
+    got = flash_attention.ops.flash_attention(q, k, v, causal=causal, window=window,
+                                              q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.ops.launches == before + 1
+    want = flash_attention.ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+        window=window, q_offset=off).transpose(1, 2)
+    assert got.shape == (B, Sq, Hq, Dv) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    if window is not None and off + Sq - 1 - (Sk - 1) >= window:
+        assert not got[:, Sk - 1 + window - off:].any()   # rows that see no key: 0
+
+
 def test_wrappers_check_their_inputs(gen):
     tree = _tree(64, gen)
     with pytest.raises(ValueError):
@@ -102,3 +133,11 @@ def test_wrappers_check_their_inputs(gen):
     with pytest.raises(ValueError):
         nstep_return.ops.nstep_return(torch.zeros((4, 8), device="cuda")[:, ::2],
                                       torch.zeros((4, 4), device="cuda"), 3)
+    q = torch.zeros((1, 8, 2, 96), device="cuda")
+    with pytest.raises(ValueError):                            # head size 96
+        flash_attention.ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device="cuda")
+    with pytest.raises(ValueError):                            # f16
+        flash_attention.ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                            # strided rows
+        flash_attention.ops.flash_attention(q, torch.zeros((1, 8, 2, 128), device="cuda")[..., ::2], q)

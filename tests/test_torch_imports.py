@@ -33,5 +33,6 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_kernel_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for kernel in ("sumtree_update", "sumtree_sample", "replay_ingest", "nstep_return"):
+    for kernel in ("sumtree_update", "sumtree_sample", "replay_ingest", "nstep_return",
+                   "flash_attention"):
         assert f"src/repro_torch/kernels/{kernel}/ops.py" in names
